@@ -90,11 +90,15 @@ test-all: ## Full test suite incl. slow e2e/SPMD/numerics (~15 min on 1 core)
 	$(PY) -m pytest tests/ -x -q
 
 .PHONY: bench
-bench: ## Headline benchmark on the attached TPU chip
+bench: ## Headline benchmark on the attached GPU
 	$(PY) bench.py
 
+.PHONY: chip-smoke
+chip-smoke: ## Main path on the attached GPU, checked against CPU and the kernels' references
+	$(PY) chip_smoke.py
+
 .PHONY: profile
-profile: ## Per-stage TPU timing of the tracker
+profile: ## Per-stage device timing of the tracker
 	$(PY) -m scripts.profile_stages 640x400 4
 
 

@@ -10,8 +10,8 @@ remaps its inputs to the topics ``scripts.run_pipeline --ros`` publishes:
 reference launch/thor_nvblox.launch.py:53-59).
 
 nvblox itself is an external CUDA package; this launch exists for parity
-when a CUDA box sits on the ROS graph. On a TPU-only robot, skip it:
-``run_pipeline --map`` runs the TPU-native dense mapper in-process with
+when nvblox sits on the ROS graph. Otherwise skip it:
+``run_pipeline --map`` runs the in-process dense mapper with
 the same parameters (``thor_slam_tpu/mapping/``), publishing its surface
 cloud and mesh on ``/mapper/{surface,mesh}`` instead.
 

@@ -1,10 +1,10 @@
-"""ROS 2 launch: TPU SLAM bridge + map->odom TF completion.
+"""ROS 2 launch: SLAM bridge + map->odom TF completion.
 
 The role of the reference's launch/thor_visual_slam.launch.py — except the
-SLAM core is this repo's in-process TPU engine instead of a cuVSLAM
+SLAM core is this repo's in-process engine instead of a cuVSLAM
 composable node, so the launch graph collapses to two plain processes:
 
-* ``scripts.run_slam`` with ROS output enabled — tracks the rig on the TPU
+* ``scripts.run_slam`` with ROS output enabled — tracks the rig on the GPU
   and publishes odometry on ``/visual_slam/tracking/odometry`` (the
   reference's topic, so downstream consumers are unchanged);
 * ``scripts.publish_odom_tf`` — completes the TF tree with map->odom

@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--out", required=True, help="Sequence root to create")
     parser.add_argument("--frames", type=int, default=60)
@@ -47,7 +47,7 @@ def main() -> int:
                         help="Horizontal blur px per rad/s of yaw rate")
     parser.add_argument("--gyro-bias", type=float, default=0.0,
                         help="Injected constant gyro bias (rad/s, z axis)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     from thor_slam_tpu import geometry
     from thor_slam_tpu.camera.sources.synthetic import (

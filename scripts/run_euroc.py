@@ -34,7 +34,7 @@ def load_groundtruth(seq_root: Path):
     return np.asarray(ts), np.asarray(pos)
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--sequence", required=True)
     parser.add_argument("--frames", type=int, default=None)
@@ -68,11 +68,10 @@ def main() -> int:
     )
     parser.add_argument(
         "--cpu", action="store_true",
-        help="Pin the CPU backend (with --devices N: an N-device virtual "
-        "mesh). The env var alone does not stick where an accelerator "
-        "plugin force-registers; this pins before backend init.",
+        help="Pin the CPU backend before backend init (with --devices N: an "
+        "N-device virtual mesh).",
     )
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     if args.cpu:
         import os
@@ -87,35 +86,54 @@ def main() -> int:
 
         force_cpu()
 
-    from thor_slam_tpu.camera.rig import CameraRig
-    from thor_slam_tpu.camera.sources.dataset import EurocCameraSource
-    from thor_slam_tpu.engine.tpu_engine import TpuSlamEngine
-    from thor_slam_tpu.utils.evaluation import ate_rmse
     from thor_slam_tpu.utils.platform import enable_compilation_cache
 
     enable_compilation_cache()
-    seq = Path(args.sequence)
     try:
-        src = EurocCameraSource(seq, read_imu=not args.no_imu, max_frames=args.frames)
+        evaluate(
+            Path(args.sequence), args.frames, out=args.out, loop=not args.no_loop,
+            use_imu=not args.no_imu, use_accel=not args.no_accel,
+            enable_ba=not args.no_ba, devices=args.devices,
+            light_ticks=False if args.no_light else None,
+            light_half_res=args.light_half_res,
+            params=dict(median_prefilter=True) if args.median_filter else None,
+        )
     except FileNotFoundError as e:
         print(f"run_euroc: {e}", file=sys.stderr)
         return 2
-    engine = TpuSlamEngine(
-        use_imu=not args.no_imu, use_accel=not args.no_accel,
-        enable_ba=not args.no_ba, devices=args.devices,
-        light_ticks=False if args.no_light else None,
-        light_half_res=args.light_half_res,
-        params=dict(median_prefilter=True) if args.median_filter else None,
-    )
+    return 0
+
+
+def evaluate(
+    seq: Path, frames: int | None = None, out: str | None = None, loop: bool = True, **engine_kwargs
+) -> dict:
+    """Replay an ASL sequence through the engine and print its ATE.
+
+    ``engine_kwargs`` go to :class:`TpuSlamEngine`. Returns the printed
+    figures (meters): ``ate`` (odometry stream; None without ground
+    truth), ``world_ate`` (with loop corrections; None if no loop closed),
+    ``map_ate`` (keyframe trajectory; None under 3 keyframes), plus
+    ``poses`` and ``loops``.
+
+    Raises:
+        FileNotFoundError: ``seq`` is not an ASL sequence.
+    """
+    from thor_slam_tpu.camera.rig import CameraRig
+    from thor_slam_tpu.camera.sources.dataset import EurocCameraSource
+    from thor_slam_tpu.engine.tpu_engine import TpuSlamEngine
+    from thor_slam_tpu.slam.interface import SlamConfig
+    from thor_slam_tpu.utils.evaluation import ate_rmse
+
+    use_imu = engine_kwargs.get("use_imu", True)
+    src = EurocCameraSource(seq, read_imu=use_imu, max_frames=frames)
+    engine = TpuSlamEngine(**engine_kwargs)
 
     est_ts, est_pos, world_pos = [], [], []
     t0 = time.monotonic()
-    from thor_slam_tpu.slam.interface import SlamConfig
-
     with CameraRig([src], imu_source=src.name if src.has_sensor_data else None) as rig:
         engine.initialize(
             rig.calibration,
-            SlamConfig(num_cameras=2, enable_loop_closure=not args.no_loop),
+            SlamConfig(num_cameras=2, enable_loop_closure=loop),
         )
         n = 0
         while not src.exhausted:
@@ -138,19 +156,21 @@ def main() -> int:
     est_ts = np.asarray(est_ts)
     est_pos = np.asarray(est_pos)
     print(f"Tracked {len(est_pos)} frames in {elapsed:.1f}s ({len(est_pos) / elapsed:.1f} fps)")
+    loops = getattr(engine, "_loops_closed", 0)
+    result = dict(ate=None, world_ate=None, map_ate=None, poses=len(est_pos), loops=loops)
 
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             w = csv.writer(f)
             w.writerow(["#timestamp_s", "x", "y", "z"])
             for t, p in zip(est_ts, est_pos):
                 w.writerow([f"{t:.9f}", *[f"{v:.6f}" for v in p]])
-        print(f"Trajectory written to {args.out}")
+        print(f"Trajectory written to {out}")
 
     gt = load_groundtruth(seq)
     if gt is None:
         print("No ground truth in sequence; ATE not computed.")
-        return 0
+        return result
     gt_ts, gt_pos = gt
     # Associate by TRUE nearest timestamp: searchsorted alone returns the
     # first GT entry at-or-after each estimate, pairing every pose with GT
@@ -160,21 +180,22 @@ def main() -> int:
     idx = np.where(np.abs(gt_ts[lo] - est_ts) <= np.abs(gt_ts[hi] - est_ts), lo, hi)
     matched_gt = gt_pos[idx]
     ate = ate_rmse(est_pos, matched_gt)
+    result["ate"] = ate
     path_len = float(np.linalg.norm(np.diff(matched_gt, axis=0), axis=1).sum())
-    loops = getattr(engine, "_loops_closed", 0)
+    flag = lambda on: "on" if on else "off"
     print(
         f"ATE-RMSE: {ate * 100:.2f} cm over {len(est_pos)} poses "
         f"({path_len:.1f} m path, {loops} loop closures, "
-        f"ba={'on' if not args.no_ba else 'off'} "
-        f"loop={'on' if not args.no_loop else 'off'} "
-        f"imu={'on' if not args.no_imu else 'off'})"
+        f"ba={flag(engine_kwargs.get('enable_ba', True))} "
+        f"loop={flag(loop)} imu={flag(use_imu)})"
     )
     if loops:
         # The live world estimate (odometry lifted through map<-odom): the
         # number a consumer of the full TF tree experiences. Odometry ATE
         # above stays loop-independent by design (smooth stream).
+        result["world_ate"] = ate_rmse(np.asarray(world_pos), matched_gt)
         print(
-            f"world-frame live ATE-RMSE: {ate_rmse(np.asarray(world_pos), matched_gt) * 100:.2f} cm "
+            f"world-frame live ATE-RMSE: {result['world_ate'] * 100:.2f} cm "
             f"(odometry composed with map->odom)"
         )
 
@@ -191,9 +212,9 @@ def main() -> int:
         hi = np.clip(np.searchsorted(gt_ts, kf_ts), 0, len(gt_ts) - 1)
         lo = np.clip(hi - 1, 0, len(gt_ts) - 1)
         kidx = np.where(np.abs(gt_ts[lo] - kf_ts) <= np.abs(gt_ts[hi] - kf_ts), lo, hi)
-        kf_ate = ate_rmse(kf_pos, gt_pos[kidx])
-        print(f"map-trajectory ATE-RMSE: {kf_ate * 100:.2f} cm over {len(kf)} keyframes")
-    return 0
+        result["map_ate"] = ate_rmse(kf_pos, gt_pos[kidx])
+        print(f"map-trajectory ATE-RMSE: {result['map_ate'] * 100:.2f} cm over {len(kf)} keyframes")
+    return result
 
 
 if __name__ == "__main__":

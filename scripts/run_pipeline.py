@@ -20,10 +20,29 @@ import logging
 import signal
 import sys
 import time
+from dataclasses import dataclass, field
 
 from scripts.run_slam import _handle_signal, build_hardware_sources, build_synthetic_sources
 
 logger = logging.getLogger("run_pipeline")
+
+
+@dataclass
+class RunSummary:
+    """What a :func:`run` did: exit code, per-tick record and map products."""
+
+    exit_code: int = 0
+    #: (timestamp, 4x4 world_t_body) of every pose the engine returned.
+    poses: list = field(default_factory=list)
+    #: Wall time of each loop iteration (sync, track, RGB-D, mapping), ms.
+    tick_ms: list = field(default_factory=list)
+    tracking_state: str = ""
+    num_inliers: int = 0
+    rgbd_frames: int = 0
+    integrated_frames: int = 0
+    mesh_vertices: int = 0
+    mesh_triangles: int = 0
+    esdf_observed_cells: int = 0
 
 
 def run(
@@ -33,7 +52,7 @@ def run(
     use_ros: bool = False,
     save_dense_map: str | None = None,
     save_ply: str | None = None,
-) -> int:
+) -> RunSummary:
     import numpy as np
 
     import scripts.run_slam as rs
@@ -52,7 +71,7 @@ def run(
             sources, rig_ext, imu_ext = build_hardware_sources(cfg)
         except ImportError as e:  # depthai absent: say so, don't traceback
             logger.error("%s", e)
-            return 2
+            return RunSummary(exit_code=2)
 
     bus = MessageBus()
     pose_topic = bus.topic("/slam/pose", queue_size=30)
@@ -64,7 +83,7 @@ def run(
 
         if not HAVE_ROS:
             logger.error("--ros requested but rclpy is not installed")
-            return 2
+            return RunSummary(exit_code=2)
         ros_bridge = RosBridge()
 
     engine = TpuSlamEngine(
@@ -99,9 +118,9 @@ def run(
     rgbd_topics = {}
     rgbd_fps: dict[str, RateCounter] = {}
 
-    # In-process dense mapper: the nvblox-node role, TPU-native (the
-    # reference needs an external CUDA process for this — reference
-    # launch/thor_nvblox.launch.py:62-91).
+    # In-process dense mapper: the nvblox-node role, on the tracker's
+    # device (the reference needs an external CUDA process for this —
+    # reference launch/thor_nvblox.launch.py:62-91).
     mapper = None
     pose_hist: list = []  # (timestamp, world_t_body) ring for TF-style lookup
     if cfg.mapping.enabled:
@@ -128,6 +147,7 @@ def run(
     surface_topic = bus.topic("/mapper/surface", queue_size=2, keep_latest_only=True)
 
     frame_count = 0
+    summary = RunSummary()
     try:
         rig.start()
         logger.info("Initializing engine (jit warm-up)...")
@@ -175,6 +195,7 @@ def run(
 
         last_status = time.monotonic()
         while not rs._shutdown and (max_frames is None or frame_count < max_frames):
+            t_tick = time.perf_counter()
             with stats.stage("sync").time():
                 sync = rig.get_synchronized_frames()
             if sync is None:
@@ -190,6 +211,7 @@ def run(
             if pose is not None:
                 pose_topic.publish(pose)
                 pose_hist.append((pose.timestamp, pose.to_4x4_matrix()))
+                summary.poses.append(pose_hist[-1])
                 if len(pose_hist) > 60:
                     del pose_hist[:-60]
                 if ros_bridge is not None:
@@ -214,6 +236,7 @@ def run(
                             rgb_t.publish(frame)
                             depth_t.publish(frame)
                             rgbd_fps[proc.camera_name].tick()
+                            summary.rgbd_frames += 1
                             if ros_bridge is not None:
                                 ros_bridge.publish_rgbd(idx, frame.fetched())
                             if (
@@ -237,6 +260,7 @@ def run(
                                         @ product_ext[proc.camera_name],
                                     )
 
+            summary.tick_ms.append((time.perf_counter() - t_tick) * 1000.0)
             now = time.monotonic()
             if now - last_status >= 2.0:
                 rates = " ".join(
@@ -257,6 +281,8 @@ def run(
     finally:
         rig.stop()
         engine.flush()  # finalize the in-flight pipelined tick
+        summary.tracking_state = engine.get_tracking_state().name
+        summary.num_inliers = int(engine.last_diagnostics.get("num_inliers", 0))
         m = engine.get_map()
         print(
             f"Done: {frame_count} frames | map: {len(m.points)} points, "
@@ -266,6 +292,10 @@ def run(
         if mapper is not None and mapper.stats.integrated_frames:
             mesh = mapper.mesh()
             dist, occ, obs, _ = mapper.esdf_slice()
+            summary.integrated_frames = mapper.stats.integrated_frames
+            summary.mesh_vertices = len(mesh.vertices)
+            summary.mesh_triangles = len(mesh.triangles)
+            summary.esdf_observed_cells = int(obs.sum())
             print(
                 f"Dense map: {mapper.stats.integrated_frames} frames integrated | "
                 f"mesh {len(mesh.vertices)}v/{len(mesh.triangles)}t | "
@@ -283,7 +313,7 @@ def run(
         engine.shutdown()
         if ros_bridge is not None:
             ros_bridge.shutdown()
-    return 0
+    return summary
 
 
 def main() -> int:
@@ -297,7 +327,7 @@ def main() -> int:
     parser.add_argument("--rgbd-every", type=int, default=5, help="RGB-D cadence (ticks)")
     parser.add_argument(
         "--map", action="store_true",
-        help="Enable the in-process TPU dense mapper (TSDF/mesh/costmap — "
+        help="Enable the in-process dense mapper (TSDF/mesh/costmap — "
         "the nvblox-node role; also via config mapping.enabled)",
     )
     parser.add_argument(
@@ -348,7 +378,7 @@ def main() -> int:
         use_ros=args.ros,
         save_dense_map=args.save_dense_map,
         save_ply=args.save_ply,
-    )
+    ).exit_code
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Mono-camera SLAM streams: mixed stereo + mono rigs in the TPU engine.
+"""Mono-camera SLAM streams: mixed stereo + mono rigs in the engine.
 
 The reference accepts non-stereo sources (``stereo: false`` mono capture,
 reference luxonis.py:551-568) and counts them in num_cameras (reference

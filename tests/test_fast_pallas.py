@@ -1,82 +1,75 @@
-"""Pallas FAST kernel vs the XLA reference formulation.
-
-Runs the kernel in interpreter mode (CPU-safe) and asserts bit-equality
-with :func:`thor_slam_tpu.ops.fast.fast_score_map` + :func:`nms3x3` on the
-interior (the kernel zeroes a 4 px border by contract).
-"""
+"""XLA FAST-9 score + NMS vs a straightforward numpy FAST-9 reference."""
 
 from __future__ import annotations
 
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
-from thor_slam_tpu.ops import fast, fast_pallas
+from thor_slam_tpu.ops import fast
 
 
-def _reference(images: np.ndarray, threshold: float) -> tuple[np.ndarray, np.ndarray]:
-    raws, nmss = [], []
-    for im in images:
-        raw = fast.fast_score_map(jnp.asarray(im), threshold)
-        nmss.append(np.asarray(fast.nms3x3(raw)))
-        raws.append(np.asarray(raw))
-    return np.stack(raws), np.stack(nmss)
+def numpy_fast9(im: np.ndarray, threshold: float) -> tuple[np.ndarray, np.ndarray]:
+    """(raw, nms) maps: per-pixel segment test on the 16-point circle, then
+    strict-or-equal 3x3 local maxima (pixels outside the image never win)."""
+    h, w = im.shape
+    p = np.pad(im, 3, mode="edge")
+    diff = np.stack([p[3 + dy : 3 + dy + h, 3 + dx : 3 + dx + w] - im for dy, dx in fast.CIRCLE_OFFSETS])
+    raw = np.zeros_like(im)
+    for y in range(h):
+        for x in range(w):
+            d = diff[:, y, x]
+            corner = False
+            for mask in (d > threshold, d < -threshold):
+                ring = np.concatenate([mask, mask[: fast.ARC_LENGTH - 1]])
+                corner |= any(ring[s : s + fast.ARC_LENGTH].all() for s in range(16))
+            if corner:
+                raw[y, x] = max(np.maximum(d - threshold, 0).sum(), np.maximum(-d - threshold, 0).sum())
+    q = np.pad(raw, 1, constant_values=-np.inf)
+    local_max = np.max([q[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)], axis=0)
+    return raw, np.where(raw >= local_max, raw, 0.0)
 
 
-def _interior(a: np.ndarray, b: int = fast_pallas.BORDER) -> np.ndarray:
-    return a[:, b:-b, b:-b]
+def _xla(im: np.ndarray, threshold: float) -> tuple[np.ndarray, np.ndarray]:
+    raw = fast.fast_score_map(jnp.asarray(im), threshold)
+    return np.asarray(raw), np.asarray(fast.nms3x3(raw))
 
 
 class TestFastPallasEquivalence:
-    @pytest.mark.parametrize("shape", [(2, 48, 128), (1, 96, 256)])
+    @pytest.mark.parametrize("shape", [(2, 24, 40), (1, 32, 56)])
     def test_matches_xla_reference(self, shape):
         rng = np.random.default_rng(7)
         imgs = rng.uniform(0.0, 1.0, size=shape).astype(np.float32)
-        raw_p, nms_p = fast_pallas.fast_scores_batched(
-            jnp.asarray(imgs), 0.06, interpret=True
-        )
-        raw_x, nms_x = _reference(imgs, 0.06)
-        np.testing.assert_allclose(_interior(np.asarray(raw_p)), _interior(raw_x), atol=1e-6)
-        np.testing.assert_allclose(_interior(np.asarray(nms_p)), _interior(nms_x), atol=1e-6)
+        for im in imgs:
+            raw_x, nms_x = _xla(im, 0.06)
+            raw_n, nms_n = numpy_fast9(im, 0.06)
+            np.testing.assert_allclose(raw_x, raw_n, atol=1e-5)
+            np.testing.assert_array_equal(nms_x > 0, nms_n > 0)
 
     def test_multi_tile_grid(self):
-        # Height > 272 forces the halo-DMA row tiling (tile 64 divides 320).
+        # A taller image, so every row band the XLA fusion tiles is covered.
         rng = np.random.default_rng(3)
-        imgs = rng.uniform(0.0, 1.0, size=(1, 320, 128)).astype(np.float32)
-        assert fast_pallas.pick_tile_h(320) not in (None, 320)
-        raw_p, nms_p = fast_pallas.fast_scores_batched(
-            jnp.asarray(imgs), 0.05, interpret=True
-        )
-        raw_x, nms_x = _reference(imgs, 0.05)
-        np.testing.assert_allclose(_interior(np.asarray(raw_p)), _interior(raw_x), atol=1e-6)
-        np.testing.assert_allclose(_interior(np.asarray(nms_p)), _interior(nms_x), atol=1e-6)
+        im = rng.uniform(0.0, 1.0, size=(96, 40)).astype(np.float32)
+        raw_x, nms_x = _xla(im, 0.05)
+        raw_n, nms_n = numpy_fast9(im, 0.05)
+        np.testing.assert_allclose(raw_x, raw_n, atol=1e-5)
+        np.testing.assert_array_equal(nms_x > 0, nms_n > 0)
 
     def test_real_corner_structure(self):
         # Isolated bright squares: their corners carry long dark arcs (a
         # FAST-9 response), unlike checkerboard X-junctions (two 8-arcs).
-        # Both backends must agree on the NMS'd peak set, not just numerics.
-        im = np.zeros((96, 128), np.float32)
-        for y in range(16, 80, 24):
-            for x in range(16, 112, 24):
-                im[y : y + 10, x : x + 10] = 1.0
-        imgs = im[None]
-        raw_p, nms_p = fast_pallas.fast_scores_batched(
-            jnp.asarray(imgs), 0.06, interpret=True
-        )
-        _, nms_x = _reference(imgs, 0.06)
-        p = _interior(np.asarray(nms_p)) > 0
-        x = _interior(nms_x) > 0
-        assert p.sum() > 0
-        np.testing.assert_array_equal(p, x)
-
-    def test_supports_gating(self):
-        assert fast_pallas.supports(720, 1280)
-        assert fast_pallas.supports(400, 640)
-        assert not fast_pallas.supports(200, 320)  # width not 128-aligned
-        assert not fast_pallas.supports(721, 1280)  # height not 8-aligned
+        # Both implementations must agree on the NMS'd peak set.
+        im = np.zeros((48, 64), np.float32)
+        for y in range(8, 40, 16):
+            for x in range(8, 56, 16):
+                im[y : y + 6, x : x + 6] = 1.0
+        _, nms_x = _xla(im, 0.06)
+        _, nms_n = numpy_fast9(im, 0.06)
+        assert (nms_n > 0).sum() > 0
+        np.testing.assert_array_equal(nms_x > 0, nms_n > 0)
 
     def test_detect_batched_matches_single(self):
-        # The dispatcher (XLA path on CPU) must agree with per-image detect.
+        # The batched detector must agree with per-image detect.
         rng = np.random.default_rng(11)
         imgs = jnp.asarray(rng.uniform(0.0, 1.0, size=(2, 96, 128)).astype(np.float32))
         batched = fast.detect_keypoints_batched(imgs, max_keypoints=64, border_margin=8)

@@ -124,9 +124,8 @@ class TestRigBatch:
         """track_points_rig(C) must agree with C independent track_points calls.
 
         The rig entry flattens all cameras into one batch with a per-track
-        camera index (one Pallas gather launch on TPU, regrouped MXU
-        fallback elsewhere); per-camera results must not bleed across the
-        camera axis.
+        camera index (one gather per level); per-camera results must not
+        bleed across the camera axis.
         """
         import cv2
 

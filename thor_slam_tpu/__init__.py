@@ -1,7 +1,7 @@
-"""thor_slam_tpu — TPU-native multi-camera visual SLAM framework.
+"""thor_slam_tpu — multi-camera visual SLAM framework in JAX.
 
-A from-scratch rebuild of the capabilities of WT-MM/thor-slam
-(reference: /root/reference) designed TPU-first:
+A from-scratch rebuild of the capabilities of WT-MM/thor-slam, with the
+hot path on one accelerator:
 
 * The acquisition / synchronization / calibration layer keeps the reference's
   public API (``CameraSource``, ``CameraRig``, ``RigCalibration``,

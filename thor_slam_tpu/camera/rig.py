@@ -498,7 +498,7 @@ def stack_synchronized_images(
     """Stack a synchronized set into one dense [num_sources, frames_per_source, H, W(, C)] array.
 
     This is the host-side staging step before a single ``device_put`` onto the
-    TPU — the whole rig's tick rides one transfer instead of one per camera.
+    device — the whole rig's tick rides one transfer instead of one per camera.
     All sources must produce the same image shape and frames-per-source.
     """
     names = list(source_order) if source_order is not None else sorted(frame_set.frame_sets)

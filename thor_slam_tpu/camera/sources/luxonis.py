@@ -8,7 +8,7 @@ queues, reads EEPROM calibration, and exposes everything through the
 
 Differences from the reference, by design:
 
-* No on-camera StereoDepth/Sync nodes: dense depth is produced on the TPU
+* No on-camera StereoDepth/Sync nodes: dense depth is produced on the accelerator
   (:mod:`thor_slam_tpu.pipeline.rgbd`), so the camera ships raw stereo
   frames only — less PoE bandwidth, no ASIC dependence.
 * Calibration conventions preserved exactly: DepthAI extrinsic translations
@@ -89,7 +89,7 @@ class LuxonisResolution:
 class LuxonisRGBDCameraConfig:
     """RGB capture options when a camera also feeds the RGB-D product.
 
-    The TPU build computes depth off-camera, so only the RGB leg of the
+    This build computes depth off-camera, so only the RGB leg of the
     reference's RGB-D config survives (reference luxonis.py:92-115).
 
     Attributes:
@@ -103,7 +103,7 @@ class LuxonisRGBDCameraConfig:
             run_pipeline.py:138-148). None = the (auto-)selected sensor
             resolution.
         align_depth_to_rgb: Produce depth in the COLOR camera's frame
-            (the TPU depth aligner; reference aligns on the ASIC,
+            (the device depth aligner; reference aligns on the ASIC,
             luxonis.py:538-549).
     """
 
@@ -360,7 +360,7 @@ class LuxonisCameraSource(CameraSource):  # pragma: no cover - hardware
 
         The node graph the reference builds (reference luxonis.py:364-594),
         minus its StereoDepth/Sync legs — depth is produced and aligned on
-        the TPU (pipeline/rgbd.py). Each imager is a `dai.node.Camera`
+        the accelerator (pipeline/rgbd.py). Each imager is a `dai.node.Camera`
         built at its SENSOR resolution; the published streams are
         `requestOutput`s at the configured OUTPUT resolutions (letterboxed
         when the aspect ratio changes), so the SLAM and color streams stay
@@ -559,7 +559,7 @@ class LuxonisCameraSource(CameraSource):  # pragma: no cover - hardware
         """Pose of the color imager in the source (left-camera) frame.
 
         ``left_T_color`` with the EEPROM's centimeter translations
-        converted to meters — what the TPU depth->color aligner consumes
+        converted to meters — what the device depth->color aligner consumes
         (the reference aligns on the ASIC instead, luxonis.py:538-549).
         """
         if self._config.rgbd is None:

@@ -9,7 +9,7 @@ original and fixes known reference quirks:
   (the reference's version is annotation-only and never instantiable,
   reference types.py:113-128).
 * ``Intrinsics`` gains ``scaled()`` / ``fx, fy, cx, cy`` accessors used by
-  the TPU rectification path.
+  the device rectification path.
 * ``Extrinsics`` gains ``compose()`` / ``inverse()``.
 """
 

@@ -1,4 +1,4 @@
-"""The TPU SLAM engine: the from-scratch replacement for cuVSLAM.
+"""The SLAM engine: the from-scratch replacement for cuVSLAM.
 
 Implements visual odometry, IMU preintegration, sliding-window bundle
 adjustment, keyframing, loop closure and pose-graph optimization as

@@ -1,6 +1,6 @@
 """Sliding-window bundle adjustment: batched sparse Gauss-Newton with Schur.
 
-The backend refinement cuVSLAM runs internally (closed CUDA). TPU shaping
+The backend refinement cuVSLAM runs internally (closed CUDA). Design
 (SURVEY.md §7.3 item 1 — the hard part): the window is a FIXED-shape
 problem — K keyframe poses, L landmarks, observations as a dense masked
 (K, C, L) tensor — so jit sees static shapes regardless of how many
@@ -9,7 +9,7 @@ landmarks actually exist. The classic BA sparsity is exploited
 
 * landmark (3x3) blocks are batched-inverted in one shot;
 * the Schur complement reduces to einsums over the (K, C, L) axes —
-  MXU-friendly dense contractions;
+  dense contractions;
 * the reduced camera system is a (6K x 6K) dense solve (K <= 16: trivial).
 
 Gauge freedom is fixed by anchoring pose 0 (its delta is projected out).
@@ -71,7 +71,7 @@ def _inv3x3(m: jnp.ndarray) -> jnp.ndarray:
     """Batched closed-form 3x3 inverse (adjugate / determinant).
 
     jnp.linalg.inv lowers small batched inverses to LU with sequential
-    pivoting on TPU; the adjugate is dense vector math. Inputs here are
+    pivoting; the adjugate is dense vector math. Inputs here are
     damped SPD blocks, so the determinant is safely positive.
     """
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
@@ -202,16 +202,16 @@ def _bundle_adjust_f32(problem, iters, huber_delta, damping, landmark_damping):
 
         # Invert landmark blocks (batched 3x3, damped; empty slots -> ~0
         # update). Closed-form adjugate, NOT jnp.linalg.inv: batched LU
-        # lowers to sequential pivoting loops on TPU while the adjugate is
-        # ~20 dense VPU ops over the (L, 3, 3) batch.
+        # lowers to sequential pivoting loops while the adjugate is ~20
+        # dense elementwise ops over the (L, 3, 3) batch.
         h_ll = h_ll + landmark_damping * jnp.eye(3)
         h_ll_inv = _inv3x3(h_ll) * problem.lm_mask[:, None, None]
 
         # Schur complement: S = Hpp - Hpl Hll^-1 Hlp (dense 6K x 6K).
         hpl_hinv = jnp.einsum("klij,ljm->klim", h_pl, h_ll_inv)  # (K, L, 6, 3)
         s_off = jnp.einsum("klim,qlnm->kqin", hpl_hinv, h_pl)  # (K, K, 6, 6)
-        # Diagonal insertions as dense masked adds — `.at[diag].add` is a
-        # scatter (TPU scalar unit).
+        # Diagonal insertions as dense masked adds, not an `.at[diag].add`
+        # scatter.
         eye_k = jnp.eye(k)[:, :, None, None]
         s = -s_off + eye_k * h_pp[:, None]
         b = g_p - jnp.einsum("klim,lm->ki", hpl_hinv, g_l)  # (K, 6)

@@ -45,7 +45,7 @@ class LoopBackend:
     The DB is **multi-camera**: each keyframe entry stores EVERY camera's
     signature (descriptors + map-frame landmarks), and detection looks the
     query camera up against all of them — one camera axis folded into the
-    MXU lookup's keyframe axis. On a rig whose mounts cover the yaw space
+    matmul lookup's keyframe axis. On a rig whose mounts cover the yaw space
     (the reference's 4 cameras at spread yaws, examples/assets/
     brackets.urdf) this is what makes revisits recognizable from ANY
     heading: a reverse-heading repass is matched by the forward camera
@@ -225,7 +225,7 @@ class LoopBackend:
         for e in self.db[: -self.exclude_recent - 1]:
             mask[e["slot"], :] = 1.0
 
-        # ASYNC detection: dispatch the MXU lookup against the resident
+        # ASYNC detection: dispatch the matmul lookup against the resident
         # ring and poll `votes.is_ready()` on later finalizes — the host
         # never blocks on it, so a keyframe costs zero device syncs here
         # (a closure lands a tick or two after its keyframe; loop

@@ -8,10 +8,10 @@ the same camera separated by motion — estimate the essential matrix from
 tracked 2D-2D correspondences, decompose to the relative pose (up to
 scale), and triangulate the inliers.
 
-TPU shaping (same discipline as :mod:`thor_slam_tpu.engine.pnp`): a
-fixed batch of RANSAC hypotheses solved in one ``vmap`` (each an 8-point
-least-squares via a 9x9 symmetric eigendecomposition — MXU-friendly
-small dense algebra, no data-dependent control flow), Sampson-error
+Design (same discipline as :mod:`thor_slam_tpu.engine.pnp`): a fixed
+batch of RANSAC hypotheses solved in one ``vmap`` (each an 8-point
+least-squares via a 9x9 symmetric eigendecomposition — small dense
+algebra, no data-dependent control flow), Sampson-error
 inlier scoring over the full correspondence set, and a cheirality vote
 over the 4 decomposition candidates by batched midpoint triangulation.
 
@@ -241,8 +241,8 @@ def ransac_essential(
             noise makes many clean samples land in shallow local optima —
             24 hypotheses measurably locked onto a contaminated consensus
             (t-direction 46 deg off with MORE apparent inliers); 64 finds
-            the true basin. The batch is one vmap of tiny dense algebra —
-            doubling it is noise on the MXU.
+            the true basin. The batch is one vmap of tiny dense algebra,
+            so doubling it costs little.
         sample_size: Correspondences per hypothesis (static; >= 8).
         inlier_threshold: Sampson distance gate (normalized coords;
             0.006 ~ 3 px at fx = 500).
@@ -255,8 +255,7 @@ def ransac_essential(
     n = x0.shape[0]
 
     # Gumbel top-k subset sampling proportional to validity (the
-    # ransac_pnp pattern — S rounds of argmax+mask beat lax.top_k's full
-    # row sort on TPU for tiny S).
+    # ransac_pnp pattern — S rounds of argmax+mask for tiny S).
     gumbel = -jnp.log(
         -jnp.log(jax.random.uniform(key, (num_hypotheses, n)) + 1e-12) + 1e-12
     )

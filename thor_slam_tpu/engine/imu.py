@@ -21,8 +21,7 @@ import numpy as np
 
 from thor_slam_tpu.ops import lie
 
-# numpy, NOT jnp: module-level device arrays captured in executables
-# poison h2d throughput on hosted TPUs (see ops/match.py).
+# numpy, NOT jnp: no module-level device arrays (see ops/match.py).
 GRAVITY_W = np.asarray([0.0, 0.0, -9.81])
 
 #: Default noise parameters: the reference's measured OAK-D Pro values
@@ -128,8 +127,8 @@ def preintegrate_np(gyro, accel, dts, mask, gyro_bias=None, accel_bias=None):
     """NumPy twin of :func:`preintegrate` for host-side use.
 
     The per-frame pose *prediction* integrates <=64 samples of scalar math —
-    cheaper on the host than a device dispatch (which costs a round trip on
-    remote-attached TPUs). Device preintegration remains the right choice
+    cheaper on the host than a device dispatch (a host–device round trip).
+    Device preintegration remains the right choice
     inside fused graphs (tight VIO, batch evaluation).
     """
     import numpy as np
@@ -186,7 +185,7 @@ def preintegrate_fast_np(gyro, accel, dts, mask, gyro_bias=None, accel_bias=None
     all vectorized over the window; only the inherently sequential
     quaternion Hamilton fold runs per sample, on plain floats. Feeds the
     engine's full-IMU pose prediction, which runs every tick on the host
-    (a device dispatch costs a round trip on remote-attached TPUs).
+    (a device dispatch costs a host–device round trip).
     """
     import numpy as np
 

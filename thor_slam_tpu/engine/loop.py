@@ -2,14 +2,14 @@
 
 The place-recognition role of cuVSLAM's loop closure (reference exposes it
 only as the ``enable_loop_closure`` flag, launch/thor_visual_slam.launch.py).
-TPU shaping:
+Design:
 
-* **Detection** is one MXU matmul: every keyframe's binary descriptors are
+* **Detection** is one matmul: every keyframe's binary descriptors are
   kept as ±1 vectors; the similarity of the query keyframe against the
   whole database is a (N x 256) @ (256 x K*N) contraction followed by
   per-keyframe vote counting. No tree/BoW index — at rig scale (hundreds
-  of keyframes x 512 descriptors) brute force on the MXU is faster than
-  any index walk.
+  of keyframes x 512 descriptors) a brute-force dense contraction is
+  faster than any index walk.
 * **Verification** reuses the batched RANSAC PnP: the candidate keyframe's
   stored landmarks against the query's observations; a loop is accepted
   only with a strong inlier consensus.
@@ -76,7 +76,7 @@ def find_candidate(
     query-vs-DB Hamming matrix is (N, K*N) — at an all-camera DB
     (K = capacity * num_cams, e.g. 1024 entries x 512 kp) materializing
     it whole is a ~1 GB transient. Blocking bounds the peak to the block
-    while each block is still one MXU contraction.
+    while each block is still one dense contraction.
     """
     k, n, _ = db_desc.shape
     q = unpack_to_signs(query_desc)  # (N, 256) bf16 +/-1

@@ -1,7 +1,7 @@
 """Multi-camera PnP: batched Gauss-Newton with Huber IRLS and RANSAC.
 
 Pose estimation for the VO front-end — the role cuVSLAM's tracker plays
-(closed CUDA). TPU shaping: RANSAC is not a data-dependent loop but a
+(closed CUDA). Design: RANSAC is not a data-dependent loop but a
 *batch of hypotheses* solved in parallel under `vmap`, scored densely, and
 reduced with one argmax; the final polish is a masked IRLS Gauss-Newton over
 all correspondences. Everything is fixed-iteration and fixed-shape.
@@ -241,8 +241,8 @@ def ransac_pnp(
     if obs_weight is not None:
         gumbel = gumbel + jnp.log(jnp.maximum(obs_weight, 1e-6))[None, :]
     scores = jnp.where(valid[None, :], gumbel, -jnp.inf)
-    # top-k as S rounds of (argmax, mask): lax.top_k lowers to a full row
-    # sort on TPU; S is tiny (6) so the iterative form is ~free.
+    # top-k as S rounds of (argmax, mask): S is tiny (6) so the
+    # iterative form is ~free.
     iota_n = jnp.arange(n, dtype=jnp.int32)[None, :]
     cols = []
     for _ in range(sample_size):
@@ -252,8 +252,8 @@ def ransac_pnp(
     subset_idx = jnp.stack(cols, axis=1)  # (H, S)
 
     # Gather each hypothesis's subset and solve GN on (H, S) instead of
-    # masking over (H, N): the gather is H*S ~ 100 rows (negligible even on
-    # the TPU scalar unit) while the per-iteration Jacobian work shrinks by
+    # masking over (H, N): the gather is H*S ~ 100 rows (negligible)
+    # while the per-iteration Jacobian work shrinks by
     # N/S ~ 170x. Weights still gate on validity in case fewer than S
     # correspondences are valid (top_k then picks -inf-scored rows).
     sub_pts = points_w[subset_idx]  # (H, S, 3)

@@ -1,11 +1,11 @@
 """Pose-graph optimization: Gauss-Newton over SE(3) relative constraints.
 
 The loop-closure backend (cuVSLAM's internal pose-graph role). Fixed-shape
-TPU formulation: up to K nodes and E edges as dense masked arrays; the
+formulation: up to K nodes and E edges as dense masked arrays; the
 residual of edge (i, j) is ``log(inv(T_meas) inv(X_i) X_j)`` and the full
 Jacobian comes from one ``jax.jacfwd`` over the stacked (K, 6) tangent —
 at pose-graph scale (hundreds of nodes) the dense (6K x 6K) normal system
-is a trivial MXU solve, so no sparsity machinery is needed.
+is a trivial dense solve, so no sparsity machinery is needed.
 """
 
 from __future__ import annotations

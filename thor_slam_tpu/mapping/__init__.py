@@ -1,9 +1,9 @@
-"""TPU-native dense mapping: the nvblox replacement.
+"""Dense mapping in JAX: the nvblox replacement.
 
 The reference delegates dense reconstruction to NVIDIA nvblox (CUDA TSDF,
 reference launch/thor_nvblox.launch.py:62-91), consuming the RGB-D stream
-this framework already produces (``pipeline/rgbd.py``). On a TPU robot
-there is no CUDA to run nvblox, so this package closes the loop natively:
+this framework already produces (``pipeline/rgbd.py``). This package
+closes the loop in-process, on the tracker's device:
 
 * :mod:`tsdf` — projective TSDF integration over a dense voxel grid
   (voxel-parallel gather from the depth image; no scatters), with the
@@ -14,7 +14,8 @@ there is no CUDA to run nvblox, so this package closes the loop natively:
   the reference's ``esdf_mode: 1`` role).
 * :mod:`mesh` — Surface-Nets dual contouring with a fixed active-cell
   budget (the NvbloxMesh display role; chosen over marching cubes because
-  its regular stencils and table-free vertex rule map better onto the VPU).
+  its regular stencils and table-free vertex rule are dense elementwise
+  work).
 """
 
 from thor_slam_tpu.mapping.esdf import esdf_from_tsdf, esdf_slice_2d

@@ -5,11 +5,11 @@ The planning product the reference gets from nvblox's ESDF integrator
 launch/thor_nvblox.launch.py:43), plus the 2D costmap slice its nav stack
 consumes.
 
-TPU shaping
------------
+Design
+------
 nvblox propagates distances with an incremental wavefront over voxel
-blocks — pointer-chasing that a GPU tolerates and a TPU does not. Here the
-transform is EXACT and separable instead: the squared Euclidean distance
+blocks — pointer-chasing. Here the transform is EXACT and separable
+instead, and all of it is dense XLA work: the squared Euclidean distance
 transform factorizes per axis as a min-plus transform
 
     d2'[.., k] = min_j ( d2[.., j] + ((k - j) * h)^2 )

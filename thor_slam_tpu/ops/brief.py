@@ -1,7 +1,7 @@
 """Oriented BRIEF (ORB-style) binary descriptors, batched over keypoints.
 
-Replaces cuVSLAM's feature description (closed CUDA). TPU-shaped design:
-one gather extracts a patch per keypoint, then everything — intensity-
+Replaces cuVSLAM's feature description (closed CUDA). Design: one gather
+extracts a patch per keypoint, then everything — intensity-
 centroid orientation, rotated test-pair sampling, bit packing — runs as
 dense batched arithmetic over the (N, P, P) patch tensor. Descriptors are
 256 bits packed into 8 uint32 words (layout consumed by
@@ -15,11 +15,9 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-from thor_slam_tpu.utils.platform import pallas_backend
 import numpy as np
 
-from thor_slam_tpu.ops.image import extract_patches_mxu
+from thor_slam_tpu.ops import image as image_ops
 
 PATCH_RADIUS = 18  # patch half-size; fits rotated +/-13 px test points
 PATCH_SIZE = 2 * PATCH_RADIUS + 1
@@ -46,9 +44,8 @@ def _upright_sampling_matrix() -> np.ndarray:
     """Constant (P*P, 2*256) bilinear sampling matrix for the upright pattern.
 
     For unrotated BRIEF the sample positions are fixed fractional offsets, so
-    sampling all 512 test points from a patch is ``patch_flat @ S`` — one MXU
-    matmul instead of 512 gathers per keypoint (XLA gathers are scalar-bound
-    on TPU).
+    sampling all 512 test points from a patch is ``patch_flat @ S`` — one
+    matmul instead of 512 gathers per keypoint.
     """
     s = np.zeros((PATCH_SIZE * PATCH_SIZE, 2 * NUM_BITS), dtype=np.float32)
     pts = np.concatenate([TEST_PAIRS[:, :2], TEST_PAIRS[:, 2:]], axis=0)  # (512, 2)
@@ -90,12 +87,10 @@ class Descriptors(NamedTuple):
 def extract_patches(image: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     """(N, P, P) patches centered at (rounded) keypoint positions.
 
-    Routed through the one-hot-matmul extraction (MXU) — XLA's gather is
-    scalar-bound on TPU and dominated the whole tracker tick before.
     Coordinates are clipped so border keypoints yield in-bounds patches.
     """
     centers = jnp.round(xy).astype(jnp.int32)
-    return extract_patches_mxu(image, centers, PATCH_SIZE)
+    return image_ops.extract_patches(image, centers, PATCH_SIZE)
 
 
 def patch_orientation(patches: jnp.ndarray) -> jnp.ndarray:
@@ -192,24 +187,7 @@ def compute_descriptors(
 def compute_descriptors_batched(
     images: jnp.ndarray, xy: jnp.ndarray, valid: jnp.ndarray, oriented: bool = True
 ) -> Descriptors:
-    """:func:`compute_descriptors` over a (C, H, W) camera batch.
-
-    The tracker's hot entry point: on TPU the (C, N, P, P) patch tensor
-    comes from the Pallas DMA-gather kernel
-    (:mod:`thor_slam_tpu.ops.patches_pallas`) when the geometry qualifies;
-    elsewhere from the one-hot-matmul extraction. Identical numerics —
-    both are exact f32 reads of the smoothed image.
-    """
-    use_pallas = pallas_backend()
-    if use_pallas:
-        from thor_slam_tpu.ops import patches_pallas
-
-        use_pallas = patches_pallas.supports(
-            images.shape[1], images.shape[2], xy.shape[1]
-        )
-    if use_pallas:
-        centers = jnp.round(xy).astype(jnp.int32)
-        patches = patches_pallas.extract_patches_batched(images, centers, size=PATCH_SIZE)
-    else:
-        patches = jax.vmap(extract_patches)(images, xy)
+    """:func:`compute_descriptors` over a (C, H, W) camera batch (the
+    tracker's hot entry point)."""
+    patches = jax.vmap(extract_patches)(images, xy)
     return jax.vmap(lambda p, v: _describe_patches(p, v, oriented))(patches, valid)

@@ -1,9 +1,8 @@
 """Device-side camera calibration math: distort/undistort/rectify coordinates.
 
-The TPU-first tracking architecture rectifies *coordinates, not images*:
-full-frame remapping is a multi-megapixel gather per camera per tick —
-poison for the TPU (measured ~100 ms for 8 images at 640x400) — while the
-same geometry applied to 512 keypoints is a few thousand FLOPs. Detection
+The tracking architecture rectifies *coordinates, not images*:
+full-frame remapping is a multi-megapixel gather per camera per tick,
+while the same geometry applied to 512 keypoints is a few thousand FLOPs. Detection
 and KLT run on raw frames; stereo gating, triangulation, and PnP
 observations use these per-point transforms.
 

@@ -1,10 +1,10 @@
-"""FAST corner detection with a fixed keypoint budget — TPU-shaped.
+"""FAST corner detection with a fixed keypoint budget.
 
 Replaces the feature detection inside cuVSLAM (closed CUDA; reference
 launch/thor_visual_slam.launch.py:30-64). Design for XLA:
 
-* segment test evaluated densely for the whole image on the VPU (16
-  shifted views, no gather);
+* segment test evaluated densely for the whole image (16 shifted views,
+  no gather), which XLA fuses with the NMS into a few memory-bound passes;
 * 3x3 non-max suppression via reduce_window;
 * **fixed budget**: scores are partitioned into a grid of cells and the
   top-k per cell then global top-N are taken, so the output shapes are
@@ -21,8 +21,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-from thor_slam_tpu.utils.platform import pallas_backend
 
 # FAST-16 Bresenham circle, radius 3, clockwise from 12 o'clock: (dy, dx).
 CIRCLE_OFFSETS = (
@@ -59,26 +57,24 @@ def fast_score_map(image: jnp.ndarray, threshold: float = 0.06) -> jnp.ndarray:
     """
     h, w = image.shape
     padded = jnp.pad(image, 3, mode="edge")
-    shifted = jnp.stack(
-        [padded[3 + dy : 3 + dy + h, 3 + dx : 3 + dx + w] for dy, dx in CIRCLE_OFFSETS]
-    )  # (16, H, W)
-    diff = shifted - image[None]
-    bright = diff > threshold
-    dark = diff < -threshold
+    # A list of 16 shifted views, never stacked: every output pixel then
+    # depends elementwise on 16 reads of the padded image, which XLA fuses
+    # into one pass instead of materializing (16, H, W) intermediates.
+    diff = [padded[3 + dy : 3 + dy + h, 3 + dx : 3 + dx + w] - image for dy, dx in CIRCLE_OFFSETS]
 
-    def has_arc(mask: jnp.ndarray) -> jnp.ndarray:
-        ext = jnp.concatenate([mask, mask[: ARC_LENGTH - 1]], axis=0)  # wraparound
-        hit = jnp.zeros(image.shape, dtype=bool)
+    def has_arc(mask: list) -> jnp.ndarray:
+        ext = mask + mask[: ARC_LENGTH - 1]  # wraparound
+        hit = None
         for start in range(16):
             run = ext[start]
             for j in range(1, ARC_LENGTH):
                 run = run & ext[start + j]
-            hit = hit | run
+            hit = run if hit is None else hit | run
         return hit
 
-    is_corner = has_arc(bright) | has_arc(dark)
-    excess_b = jnp.sum(jnp.maximum(diff - threshold, 0.0), axis=0)
-    excess_d = jnp.sum(jnp.maximum(-diff - threshold, 0.0), axis=0)
+    is_corner = has_arc([d > threshold for d in diff]) | has_arc([d < -threshold for d in diff])
+    excess_b = sum(jnp.maximum(d - threshold, 0.0) for d in diff)
+    excess_d = sum(jnp.maximum(-d - threshold, 0.0) for d in diff)
     score = jnp.maximum(excess_b, excess_d)
     return jnp.where(is_corner, score, 0.0)
 
@@ -110,7 +106,7 @@ def _select_keypoints(
     """Bucketing + top-N + subpixel selection from dense response maps.
 
     ``raw`` is the pre-NMS response (for the parabola fits), ``score`` the
-    NMS'd one. Shared by the XLA and Pallas score backends.
+    NMS'd one.
     """
     h, w = raw.shape
     score = _mask_border(score, border_margin)
@@ -122,9 +118,8 @@ def _select_keypoints(
     padded = padded.at[:h, :w].set(score)
     cells = padded.reshape(gh, cell_size, gw, cell_size).transpose(0, 2, 1, 3)
     cells = cells.reshape(gh * gw, cell_size * cell_size)
-    # Per-cell top-k as k rounds of (argmax, mask) on the VPU: identical
-    # results to lax.top_k (same tie order: first-lowest-index), but ~6x
-    # faster on TPU where top_k lowers to a full sort of every cell.
+    # Per-cell top-k as k rounds of (argmax, mask): identical results to
+    # lax.top_k (same tie order: first-lowest-index).
     iota = jnp.arange(cells.shape[1], dtype=jnp.int32)[None, :]
     remaining = cells
     scores_rounds, idx_rounds = [], []
@@ -220,32 +215,11 @@ def detect_keypoints_batched(
     per_cell: int = 8,
     border_margin: int = 20,
 ) -> Keypoints:
-    """:func:`detect_keypoints` over a (C, H, W) camera batch.
-
-    The tracker's hot entry point: on TPU the dense score maps come from the
-    fused Pallas stencil (:mod:`thor_slam_tpu.ops.fast_pallas`) when the
-    shape qualifies; elsewhere (CPU tests, odd shapes) from the XLA
-    formulation. Selection semantics are identical either way — the Pallas
-    kernel zeroes a 4 px border that ``border_margin`` (>= 20 in production)
-    already suppresses.
-    """
-    _, h, w = images.shape
-    use_pallas = pallas_backend() and border_margin >= fast_pallas_border()
-    if use_pallas:
-        from thor_slam_tpu.ops import fast_pallas
-
-        use_pallas = fast_pallas.supports(h, w)
-    if use_pallas:
-        raw, score = fast_pallas.fast_scores_batched(images, threshold)
-    else:
-        raw = jax.vmap(lambda im: fast_score_map(im, threshold))(images)
-        score = jax.vmap(nms3x3)(raw)
+    """:func:`detect_keypoints` over a (C, H, W) camera batch (the
+    tracker's hot entry point)."""
+    raw = jax.vmap(lambda im: fast_score_map(im, threshold))(images)
+    score = jax.vmap(nms3x3)(raw)
     select = lambda r, s: _select_keypoints(
         r, s, max_keypoints, cell_size, per_cell, border_margin
     )
     return jax.vmap(select)(raw, score)
-
-
-def fast_pallas_border() -> int:
-    """The Pallas kernel's zeroed border width (import-cycle-free accessor)."""
-    return 4

@@ -7,9 +7,8 @@ All functions are shape-polymorphic at trace time but produce static shapes,
 and every one of them is safe to `vmap` over leading batch axes.
 
 Layout note: images are (H, W) or (H, W, C) float32 in [0, 1] unless a
-function documents otherwise. On TPU the W axis maps to lanes; H to
-sublanes — row-major contiguous ops (separable convolutions along W) are
-the fast path.
+function documents otherwise; rows are contiguous, so row-major ops
+(separable convolutions along W) are the fast path.
 """
 
 from __future__ import annotations
@@ -148,7 +147,7 @@ def median3x3(image: jnp.ndarray) -> jnp.ndarray:
     extreme pixel can never be the median of its neighborhood, while
     step edges and corners pass through unblurred (unlike a Gaussian).
     Pure min/max elementwise ops — XLA fuses the whole network into one
-    VPU pass, so it is far cheaper than a sort. Edge-replicated borders.
+    pass, so it is far cheaper than a sort. Edge-replicated borders.
     """
     h, w = image.shape
     p = jnp.pad(image, 1, mode="edge")
@@ -184,39 +183,30 @@ def batched_resize(images: jnp.ndarray, out_h: int, out_w: int) -> jnp.ndarray:
     return jax.vmap(lambda im: resize_bilinear(im, out_h, out_w))(images)
 
 
-def extract_patches_mxu(image: jnp.ndarray, centers: jnp.ndarray, size: int) -> jnp.ndarray:
-    """(N, size, size) patches at integer centers — as two one-hot matmuls.
-
-    XLA gathers execute on the TPU scalar unit (~1e8 elements/s measured);
-    selecting patch rows and columns with one-hot selection matrices turns
-    the same extraction into two batched MXU contractions
-    (``R_n @ image @ C_nᵀ``), ~50x faster for the tracker's patch shapes.
+def extract_patches(image: jnp.ndarray, centers: jnp.ndarray, size: int) -> jnp.ndarray:
+    """(N, size, size) patches at integer centers, as one XLA gather.
 
     Args:
-        image: (H, W) float32 source.
+        image: (H, W) source.
         centers: (N, 2) integer (x, y) patch centers; patches are clipped
             fully inside the image (edge replication via index clamping).
         size: Odd patch side length (static).
 
     Returns:
-        (N, size, size) float32 patches.
+        (N, size, size) patches (exact reads of ``image``).
     """
-    h, w = image.shape
+    return extract_patches_rig(image[None], jnp.zeros(centers.shape[0], jnp.int32), centers, size)
+
+
+def extract_patches_rig(
+    images: jnp.ndarray, cams: jnp.ndarray, centers: jnp.ndarray, size: int
+) -> jnp.ndarray:
+    """(N, size, size) patches from a (C, H, W) stack; patch i from camera
+    ``cams[i]`` at integer center ``centers[i]`` (clipped inside the image).
+    """
+    _, h, w = images.shape
     r = size // 2
-    cx = jnp.clip(centers[:, 0], r, w - r - 1)
-    cy = jnp.clip(centers[:, 1], r, h - r - 1)
-    d = jnp.arange(-r, r + 1)
-    row_idx = cy[:, None] + d[None, :]  # (N, size)
-    col_idx = cx[:, None] + d[None, :]
-    rows_1h = jax.nn.one_hot(row_idx, h, dtype=image.dtype)  # (N, size, H)
-    cols_1h = jax.nn.one_hot(col_idx, w, dtype=image.dtype)  # (N, size, W)
-    # HIGHEST: bf16 operands would quantize intensities to ~2^-8 (the
-    # pixel quantum) — the extraction must be exact (see ops/klt.py).
-    row_block = jnp.einsum(
-        "nsh,hw->nsw", rows_1h, image,
-        preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
-    )  # (N, size, W)
-    return jnp.einsum(
-        "nsw,ntw->nst", row_block, cols_1h,
-        preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
-    )  # (N, size, size)
+    cx = jnp.clip(centers[:, 0], r, w - r - 1) - r
+    cy = jnp.clip(centers[:, 1], r, h - r - 1) - r
+    cut = lambda c, y, x: jax.lax.dynamic_slice(images, (c, y, x), (1, size, size))[0]
+    return jax.vmap(cut)(cams, cy, cx)

@@ -1,4 +1,4 @@
-"""Pyramidal Lucas-Kanade (KLT) patch tracking — MXU-native, gather-free core.
+"""Pyramidal Lucas-Kanade (KLT) patch tracking — matmul core, one gather.
 
 The temporal-association workhorse of the tracker (the role of cuVSLAM's
 patch tracker). Descriptor matching associates globally but is ambiguous in
@@ -6,14 +6,12 @@ repetitive scenes; LK refines a *predicted* position to subpixel accuracy by
 local photometric alignment and reports a residual that doubles as a
 verification score.
 
-TPU shaping — the key design decision: XLA gathers are scalar-unit-bound on
-TPU (measured ~65M elements/s), so per-iteration bilinear gathers are
-replaced by linear algebra. Per track and pyramid level we extract one
-(S x S) window around the initial estimate, materialize its (2m+2)^2
-statically-shifted (P x P) views, and express bilinear sampling at any
-fractional offset as ``weights @ views`` — a batched matvec the MXU eats.
-Each LK iteration is then pure dense math; only the one-time window
-extraction touches a gather.
+Design: per-iteration bilinear gathers are replaced by linear algebra. Per
+track and pyramid level we extract one (S x S) window around the initial
+estimate, materialize its (2m+2)^2 statically-shifted (P x P) views, and
+express bilinear sampling at any fractional offset as ``weights @ views`` —
+a batched matvec. Each LK iteration is then pure dense math; only the
+one-time window extraction touches a gather.
 """
 
 from __future__ import annotations
@@ -24,9 +22,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from thor_slam_tpu.utils.platform import pallas_backend
-
-from thor_slam_tpu.ops.image import extract_patches_mxu
+from thor_slam_tpu.ops.image import extract_patches_rig
 
 
 class TrackResult(NamedTuple):
@@ -48,33 +44,14 @@ def _extract_windows(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(M, S, S) windows around integer centers from a (C, H, W) stack.
 
-    ``cam`` is the per-window camera index and MUST be camera-major
-    (``repeat(arange(C), N)`` — the MXU fallback regroups by it). Returns
-    (windows, centers_clipped). On TPU the windows come from the Pallas
-    DMA gather (:mod:`thor_slam_tpu.ops.patches_pallas`) — the one-hot-
-    matmul extraction re-reads H*W*S MACs per window and dominated the
-    whole tracking tick before; the DMA engine moves just the patch bytes.
+    ``cam`` is the per-window camera index. Returns (windows,
+    centers_clipped); the windows are one gather of just the window bytes.
     """
-    c, h, w = images.shape
-    size = 2 * wr + 1
+    _, h, w = images.shape
     cx = jnp.clip(centers[:, 0], wr, w - wr - 1)
     cy = jnp.clip(centers[:, 1], wr, h - wr - 1)
     ctr = jnp.stack([cx, cy], axis=-1)
-    use_pallas = pallas_backend()
-    if use_pallas:
-        from thor_slam_tpu.ops import patches_pallas
-
-        use_pallas = patches_pallas.supports(h, w, ctr.shape[0], size)
-    if use_pallas:
-        from thor_slam_tpu.ops import patches_pallas
-
-        win = patches_pallas.extract_patches_flat(images, cam, ctr, size)
-    else:
-        n = ctr.shape[0] // c
-        win = jax.vmap(lambda img, ct: extract_patches_mxu(img, ct, size))(
-            images, ctr.reshape(c, n, 2)
-        ).reshape(-1, size, size)
-    return win, ctr
+    return extract_patches_rig(images, cam, ctr, 2 * wr + 1), ctr
 
 
 def _shifted_views(win: jnp.ndarray, radius: int, m: int) -> jnp.ndarray:
@@ -84,10 +61,10 @@ def _shifted_views(win: jnp.ndarray, radius: int, m: int) -> jnp.ndarray:
     window center, for a, b in [0, 2m+1].
 
     One im2col op (``conv_general_dilated_patches``) instead of K*K
-    explicit slices + concatenate: the unrolled-slice formulation generated
-    ~9 MB of TPU code per LK level (K*K = 100 fused slice kernels,
-    duplicated per pyramid level and image), which ballooned the tracker
-    executable to ~56 MB and its compile to minutes.
+    explicit slices + concatenate: the unrolled-slice formulation emitted
+    K*K = 100 fused slice kernels per LK level, duplicated per pyramid
+    level and image, which ballooned the tracker executable and its
+    compile time.
     """
     n, s, _ = win.shape
     p = 2 * radius + 1
@@ -128,12 +105,12 @@ def _interp_weights(d: jnp.ndarray, m: int) -> jnp.ndarray:
 
 
 def _sample(views: jnp.ndarray, d: jnp.ndarray, m: int) -> jnp.ndarray:
-    """Bilinear patch sample at offsets d via one MXU matvec: (N, P*P)."""
+    """Bilinear patch sample at offsets d via one matvec: (N, P*P)."""
     w2 = _interp_weights(d, m)
-    # HIGHEST: on TPU the default bf16 operand precision quantizes image
-    # intensities to ~2^-8 — at or above the 1/255 pixel quantum — and the
-    # lost bits surface directly as subpixel tracking noise (measured 8x
-    # worse trajectory ATE on TPU vs CPU before this).
+    # HIGHEST: reduced-precision matmul operands (bf16, or TF32 on NVIDIA
+    # GPUs) quantize image intensities near the 1/255 pixel quantum, and
+    # the lost bits surface directly as subpixel tracking noise (bf16
+    # operands measured 8x worse trajectory ATE than f32).
     return jnp.einsum(
         "ns,nsp->np", w2, views,
         preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
@@ -153,7 +130,7 @@ def _lk_level(
     """Inverse-compositional LK at one level, flat over all rig tracks.
 
     ``prev``/``cur`` are (C, h, w) stacks; ``cam`` maps each of the M
-    tracks to its camera (camera-major). Returns (positions, residual).
+    tracks to its camera. Returns (positions, residual).
     """
     wr = radius + m + 1
 
@@ -163,15 +140,14 @@ def _lk_level(
     win_c, cc = _extract_windows(cur, cam, c_cur, wr)
     # Force the extracted windows to materialize: without the barrier XLA
     # may fuse the gather (and everything upstream of the track positions)
-    # into each of the (2m+2)^2 shifted-view slices, re-executing it ~100x
-    # (measured: 74 ms vs 0.4 ms for the whole KLT call).
+    # into each of the (2m+2)^2 shifted-view slices, re-executing it ~100x.
     win_p, win_c = jax.lax.optimization_barrier((win_p, win_c))
     # No barrier on the views: views_p has exactly one consumer (the fused
     # template matmul) and views_c two (gradient projection + final
     # residual), so the worst case is re-running the cheap im2col on the
     # small materialized windows — far cheaper than writing + re-reading
     # the (M, K^2, P^2) tensors through HBM. (The barrier above still
-    # protects the Pallas gather from being re-executed per consumer.)
+    # protects the gather from being re-executed per consumer.)
     views_p = _shifted_views(win_p, radius, m)
     views_c = _shifted_views(win_c, radius, m)
     cp = cp.astype(jnp.float32)
@@ -258,8 +234,7 @@ def track_points_rig(
     """Track all rig points from the previous frame into the current one.
 
     The whole rig is one flat batch of C*N tracks (per-track camera index),
-    so the Pallas window gather runs as a single kernel launch per level —
-    camera batching costs nothing and there is no vmap-of-pallas.
+    so the window gather is one operation per level for every camera.
 
     Args:
         prev_pyramid: Tuple of (C, H/2^l, W/2^l) stacks, level 0 first.

@@ -1,9 +1,9 @@
-"""Small-matrix linear algebra unrolled for the TPU vector unit.
+"""Small-matrix linear algebra, unrolled into fused elementwise ops.
 
 jnp.linalg.solve / inv / cholesky on tiny systems (the 6x6 Gauss-Newton
 normal equations solved dozens of times per tracking tick) lower to LU
-with sequential pivoting loops on TPU — scalar-unit work out of all
-proportion to the math. For a damped SPD system of static size n, an
+with sequential pivoting loops — work out of all proportion to the
+math. For a damped SPD system of static size n, an
 UNROLLED Cholesky factor + two triangular substitutions is ~n^3/3 fused
 elementwise ops that vectorize over any batch (the RANSAC hypothesis
 axis rides along for free).

@@ -5,14 +5,16 @@ luxonis.py:513-536: HIGH_DETAIL preset, left-right check, subpixel) — this
 is the producer of the RGB-D stream nvblox consumes (reference
 run_pipeline.py:166-292).
 
-TPU shaping:
+Design:
 
-* census transform and the XOR-popcount cost volume are dense VPU work;
-* path aggregation runs as `lax.scan` along image axes with the whole
-  cross-section (rows x disparities) updated per step — the recurrence is
-  inherently sequential per direction, but each step is a wide vector op;
-* left-right consistency reuses the same cost volume re-indexed for the
-  right view (no second aggregation);
+* census transform and the XOR-popcount cost volume are dense elementwise
+  work;
+* path aggregation is the exact recurrence, sequential along each path: on
+  a CUDA GPU one Pallas-Triton kernel streams the volume for all paths
+  (:mod:`thor_slam_tpu.ops.sgm_triton`); elsewhere it runs as `lax.scan`
+  with the whole cross-section (rows x disparities) updated per step;
+* left-right consistency reuses the same aggregated volume re-indexed for
+  the right view (no second aggregation);
 * subpixel refinement is a parabola fit on the aggregated costs.
 
 Everything is fixed-shape; invalid pixels carry disparity 0 and a False
@@ -26,11 +28,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from thor_slam_tpu.ops import sgm_triton
 from thor_slam_tpu.ops.match import popcount_u32
-from thor_slam_tpu.utils.platform import pallas_backend
 
-# Python scalar, NOT jnp.float32: module-level device arrays captured in
-# executables poison h2d throughput on hosted TPUs (see ops/match.py).
+# Python scalar, NOT jnp.float32 (see ops/match.py).
 _BIG = 1e9
 
 
@@ -77,88 +78,90 @@ def census_cost_volume(census_l: jnp.ndarray, census_r: jnp.ndarray, num_dispari
     return jnp.stack(costs)
 
 
-def _sgm_scan_one_direction(
-    cost_dhw: jnp.ndarray,
-    p1: float,
-    p2: float,
-    axis: int,
-    reverse: bool,
-    block: int = 64,
-    halo: int = 16,
-) -> jnp.ndarray:
-    """Aggregate SGM costs along one image axis (overlapped-block parallel).
+def _scan_path(seq: jnp.ndarray, p1: float, p2: float) -> jnp.ndarray:
+    """Exact SGM recurrence along axis 0 of a step-major (S, D, X) volume.
 
-    The exact SGM recurrence is sequential along the path, which makes the
-    naive `lax.scan` latency-bound on TPU (one tiny step per pixel column).
-    SGM's normalization (subtracting the running min) saturates path
-    influence within ~P2/P1 pixels, so the standard accelerator trick
-    applies: split the path into blocks scanned IN PARALLEL, each warmed up
-    with a `halo` of preceding pixels whose outputs are discarded. With
-    halo >= ~16 the result is indistinguishable from the exact scan (the
-    test suite checks disparity agreement), and sequential depth drops from
-    the image dimension to ``halo + block``.
-
-    Args:
-        cost_dhw: (D, H, W) matching costs.
-        p1: Small-jump penalty (|dd| = 1).
-        p2: Large-jump penalty (|dd| > 1).
-        axis: 1 to sweep down rows (vertical paths), 2 to sweep columns.
-        reverse: Sweep in the decreasing-index direction.
-        block: Pixels per parallel block (static).
-        halo: Warm-up pixels per block (static).
-
-    Returns:
-        (D, H, W) aggregated path costs L_r.
+    One `lax.scan` step per pixel along the path, the whole cross-section
+    updated per step; output in the volume's dtype (exact for bf16 volumes
+    with integral penalties, see :func:`sgm_disparity`).
     """
-    # Move the swept axis to the scan dimension: (steps, D, cross).
-    if axis == 2:
-        seq = jnp.moveaxis(cost_dhw, 2, 0)  # (W, D, H)
-    else:
-        seq = jnp.moveaxis(cost_dhw, 1, 0)  # (H, D, W)
-    if reverse:
-        seq = seq[::-1]
 
-    steps, d, cross = seq.shape
-    # Penalties/sentinel follow the cost dtype so the scan carry stays in it
-    # (bf16 aggregation halves the dominant HBM traffic; see sgm_disparity).
-    dt = cost_dhw.dtype
-    p1 = jnp.asarray(p1, dt)
-    p2 = jnp.asarray(p2, dt)
-    big = jnp.asarray(_BIG, dt)
+    def step(prev, c):
+        prev_min = jnp.min(prev, axis=0, keepdims=True)
+        big = jnp.full_like(prev[:1], _BIG)
+        up = jnp.concatenate([prev[1:], big], axis=0)
+        down = jnp.concatenate([big, prev[:-1]], axis=0)
+        best = jnp.minimum(jnp.minimum(prev, jnp.minimum(up, down) + p1), prev_min + p2)
+        l = c.astype(jnp.float32) + (best - prev_min)
+        return l, l.astype(seq.dtype)
 
-    nb = -(-steps // block)
-    pad_back = nb * block - steps
-    # Front edge-padding warms up block 0 exactly like a path start; back
-    # padding is sliced away.
-    padded = jnp.concatenate(
-        [jnp.repeat(seq[:1], halo, axis=0), seq, jnp.repeat(seq[-1:], pad_back, axis=0)],
-        axis=0,
-    )  # (halo + nb*block + ?, D, cross)
+    # A UNIFORM start makes the first step exact: best - min == 0.
+    _, out = jax.lax.scan(step, jnp.zeros(seq.shape[1:], jnp.float32), seq)
+    return out
 
-    # blocks[i, b] = padded[b*block + i] for i in [0, halo+block).
-    idx = (jnp.arange(nb) * block)[None, :] + jnp.arange(halo + block)[:, None]
-    blocked = padded[idx.reshape(-1)].reshape(halo + block, nb, d, cross)
 
-    def step(prev_l, c):
-        # prev_l: (nb, D, cross) running costs for every block in parallel.
-        prev_min = jnp.min(prev_l, axis=1, keepdims=True)
-        up = jnp.concatenate([prev_l[:, 1:], jnp.full_like(prev_l[:, :1], big)], axis=1)
-        down = jnp.concatenate([jnp.full_like(prev_l[:, :1], big), prev_l[:, :-1]], axis=1)
-        best = jnp.minimum(jnp.minimum(prev_l, jnp.minimum(up, down) + p1), prev_min + p2)
-        l = (c + best - prev_min).astype(dt)
-        return l, l
+def sgm_aggregate_xla(cost_dhw: jnp.ndarray, p1: float, p2: float, num_paths: int = 4) -> jnp.ndarray:
+    """Plain-XLA exact path aggregation: the reference for the GPU kernel
+    (:func:`thor_slam_tpu.ops.sgm_triton.sgm_aggregate`) and the path on
+    every other platform. Returns the (D, H, W) float32 sum over paths."""
 
-    _, out = jax.lax.scan(step, blocked[0], blocked[1:])
-    out = jnp.concatenate([blocked[:1], out], axis=0)  # (halo+block, nb, D, cross)
+    def pair(seq):  # forward + reverse along axis 0, summed in f32
+        fwd = _scan_path(seq, p1, p2).astype(jnp.float32)
+        return fwd + _scan_path(seq[::-1], p1, p2)[::-1].astype(jnp.float32)
 
-    # Keep each block's non-halo outputs, reassemble, trim the back padding.
-    out = out[halo:].transpose(1, 0, 2, 3).reshape(nb * block, d, cross)[:steps]
+    agg = pair(cost_dhw.transpose(2, 0, 1)).transpose(1, 2, 0)
+    if num_paths >= 4:
+        agg = agg + pair(cost_dhw.transpose(1, 0, 2)).transpose(1, 0, 2)
+    return agg
 
-    if reverse:
-        out = out[::-1]
-    if axis == 2:
-        return jnp.moveaxis(out, 0, 2)
-    return jnp.moveaxis(out, 0, 1)
+
+def sgm_aggregate(cost_dhw: jnp.ndarray, p1: float, p2: float, num_paths: int = 4) -> jnp.ndarray:
+    """Exact SGM path aggregation, chosen by the platform it compiles for:
+    the Pallas-Triton streaming kernel on CUDA GPUs, plain XLA elsewhere.
+    Both are bit-identical for bf16 volumes with integral penalties."""
+    return jax.lax.platform_dependent(
+        cost_dhw,
+        cuda=partial(sgm_triton.sgm_aggregate, p1=p1, p2=p2, num_paths=num_paths),
+        default=partial(sgm_aggregate_xla, p1=p1, p2=p2, num_paths=num_paths),
+    )
+
+
+def winner_lr(agg: jnp.ndarray, num_disparities: int) -> tuple[jnp.ndarray, ...]:
+    """Disparity winners + left-right-check data from a (D, H, W) volume.
+
+    Returns (d_best i32, c0, c_minus, c_plus, second, d_r_at i32), all
+    (H, W): the winning disparity, the aggregated cost at it and at its
+    +/-1 neighbours (clipped into range), the best cost outside +/-1 of the
+    winner, and the right view's winning disparity at each left pixel's
+    match.
+    """
+    _, h, w = agg.shape
+    d_best = jnp.argmin(agg, axis=0)  # (H, W)
+    d_idx = jax.lax.broadcasted_iota(jnp.int32, agg.shape, 0)
+
+    def at_disp(d):
+        """agg[d[y, x], y, x], d clipped into range (one gather)."""
+        dc = jnp.clip(d, 0, num_disparities - 1)
+        return jnp.take_along_axis(agg, dc[None], axis=0)[0]
+
+    c0 = at_disp(d_best)
+    cm = at_disp(d_best - 1)
+    cp = at_disp(d_best + 1)
+
+    # Uniqueness: best must beat the second-best (outside +/-1) clearly.
+    masked = jnp.where(jnp.abs(d_idx - d_best[None]) <= 1, _BIG, agg)
+    second = jnp.min(masked, axis=0)
+
+    # Left-right check from the same volume: cost_R[d, y, x] =
+    # cost_L[d, y, x + d] (_BIG past the right edge), then the right-view
+    # winner read back at each left pixel's match x - d_L (0 left of the
+    # image; sgm_disparity's in_range invalidates those pixels anyway).
+    x_r = jax.lax.broadcasted_iota(jnp.int32, agg.shape, 2) + d_idx
+    agg_r = jnp.where(x_r < w, jnp.take_along_axis(agg, jnp.minimum(x_r, w - 1), axis=2), _BIG)
+    d_best_r = jnp.argmin(agg_r, axis=0)  # (H, W) right-image disparities
+    x_m = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1) - d_best
+    d_r_at = jnp.where(x_m >= 0, jnp.take_along_axis(d_best_r, jnp.maximum(x_m, 0), axis=1), 0)
+    return d_best, c0, cm, cp, second, d_r_at
 
 
 @partial(jax.jit, static_argnames=("num_disparities", "num_paths", "p1", "p2"))
@@ -195,93 +198,18 @@ def sgm_disparity(
     # Path aggregation runs in bfloat16: census costs are integers <= 24 and
     # the per-path running cost is bounded by max(cost) + p2 (~120), well
     # inside bf16's exact-integer range (256) — so for integral penalties the
-    # bf16 scans are EXACT, at half the HBM traffic of f32 (the dominant cost
-    # at 720p: measured 69 -> 43 ms at D=96). Only the 4-direction sum can
-    # exceed 256, so directions accumulate in f32. Exactness needs integral
-    # penalties and the running-cost bound inside 256; otherwise (custom
-    # penalties) stay in f32 — p1/p2 are trace-time constants, so this
-    # branch costs nothing.
+    # bf16 scans are EXACT, at half the memory traffic of f32. Only the
+    # 4-direction sum can exceed 256, so directions accumulate in f32.
+    # Exactness needs integral penalties and the running-cost bound inside
+    # 256; otherwise (custom penalties) stay in f32 — p1/p2 are trace-time
+    # constants, so this branch costs nothing.
     exact_in_bf16 = p1 == int(p1) and p2 == int(p2) and 24 + p2 < 250
     cost16 = cost.astype(jnp.bfloat16) if exact_in_bf16 else cost
 
-    # On TPU the aggregation runs as the Pallas streaming scan (exact
-    # recurrence, one HBM pass per direction; measured 29 -> 9 ms for all
-    # four directions at 720p/96). The XLA blocked-halo scan remains the
-    # CPU / odd-geometry / f32 fallback.
-    use_pallas = exact_in_bf16 and pallas_backend()
-    if use_pallas:
-        from thor_slam_tpu.ops import sgm_pallas
+    agg = sgm_aggregate(cost16, p1, p2, num_paths)
 
-        use_pallas = sgm_pallas.supported_for(num_disparities, *left.shape)
-    if use_pallas:
-        from thor_slam_tpu.ops import sgm_pallas
-
-        agg = sgm_pallas.sgm_aggregate_4dir(cost16, p1, p2, num_paths=num_paths)
-    else:
-        agg = _sgm_scan_one_direction(cost16, p1, p2, axis=2, reverse=False).astype(jnp.float32)
-        agg = agg + _sgm_scan_one_direction(cost16, p1, p2, axis=2, reverse=True).astype(jnp.float32)
-        if num_paths >= 4:
-            agg = agg + _sgm_scan_one_direction(cost16, p1, p2, axis=1, reverse=False).astype(
-                jnp.float32
-            )
-            agg = agg + _sgm_scan_one_direction(cost16, p1, p2, axis=1, reverse=True).astype(
-                jnp.float32
-            )
-
+    d_best, c0, cm, cp, second, d_r_at = winner_lr(agg, num_disparities)
     h, w = left.shape
-    use_winner = use_pallas and h % 16 == 0 and num_disparities <= 128
-    if use_winner:
-        from thor_slam_tpu.ops import sgm_pallas
-
-        # One fused volume pass: winner, at_disp-clipped parabola
-        # neighbors, second-best outside +/-1, and the right-view winner at
-        # each left match (the XLA tail below spreads this over ~8 volume
-        # passes plus two (D, H, W) materializations).
-        d_best, c0, cm, cp, second, d_r_at = sgm_pallas.winner_lr(agg, num_disparities)
-    else:
-        d_best = jnp.argmin(agg, axis=0)  # (H, W)
-
-        # Per-pixel volume reads as one-hot reductions over D (XLA gathers
-        # are scalar-bound on TPU; a D-wide masked min/sum is pure VPU
-        # bandwidth).
-        d_idx = jax.lax.broadcasted_iota(jnp.int32, agg.shape, 0)
-
-        def at_disp(vol, d):
-            dc = jnp.clip(d, 0, num_disparities - 1)
-            onehot = d_idx == dc[None]
-            return jnp.sum(jnp.where(onehot, vol, 0.0), axis=0)
-
-        c0 = at_disp(agg, d_best)
-        cm = at_disp(agg, d_best - 1)
-        cp = at_disp(agg, d_best + 1)
-
-        # Uniqueness: best must beat the second-best (outside +/-1) clearly.
-        masked = jnp.where(jnp.abs(d_idx - d_best[None]) <= 1, _BIG, agg)
-        second = jnp.min(masked, axis=0)
-
-        # Left-right check from the same volume: cost_R[d, y, x] =
-        # cost_L[d, y, x + d] — a per-disparity SHIFT, expressed as D static
-        # slices (a take_along_axis here is a whole-volume gather: measured
-        # ~160 ms).
-        agg_r = jnp.stack(
-            [
-                jnp.concatenate([agg[dd, :, dd:], jnp.full((h, dd), _BIG)], axis=1)
-                for dd in range(num_disparities)
-            ]
-        )
-        d_best_r = jnp.argmin(agg_r, axis=0)  # (H, W) right-image disparities
-        # For each left pixel: right-view disparity at (x - d_L). Shift each
-        # candidate disparity's map right by d and select (static slices).
-        d_r_shifted = jnp.stack(
-            [
-                jnp.concatenate(
-                    [jnp.zeros((h, dd), d_best_r.dtype), d_best_r[:, : w - dd]], axis=1
-                )
-                for dd in range(num_disparities)
-            ]
-        )  # (D, H, W): d_r_shifted[d, y, x] = d_best_r[y, x - d]
-        onehot_best = d_idx == d_best[None]
-        d_r_at = jnp.sum(jnp.where(onehot_best, d_r_shifted, 0), axis=0)
 
     # Subpixel parabola: offset = (cm - cp) / (2*(cm - 2c0 + cp)).
     denom = cm - 2.0 * c0 + cp
@@ -324,7 +252,7 @@ def refine_disparity_photometric(
         (N,) refined disparities (coarse value kept where refinement is
         ill-conditioned or the slot is invalid).
     """
-    from thor_slam_tpu.ops.image import extract_patches_mxu
+    from thor_slam_tpu.ops.image import extract_patches
 
     h, w = left.shape
     r = patch_radius
@@ -332,11 +260,11 @@ def refine_disparity_photometric(
     y0 = jnp.clip(jnp.round(xy_left[:, 1]).astype(jnp.int32), r, h - r - 1)
     d0 = jnp.round(disparity).astype(jnp.int32)
 
-    lpatch = extract_patches_mxu(left, jnp.stack([x0, y0], -1), 2 * r + 1)
+    lpatch = extract_patches(left, jnp.stack([x0, y0], -1), 2 * r + 1)
 
     def sad_at(offset):
         xr = jnp.clip(x0 - d0 + offset, r, w - r - 1)
-        rp = extract_patches_mxu(right, jnp.stack([xr, y0], -1), 2 * r + 1)
+        rp = extract_patches(right, jnp.stack([xr, y0], -1), 2 * r + 1)
         return jnp.sum(jnp.abs(lpatch - rp), axis=(1, 2))
 
     s_m = sad_at(-1)  # disparity d0 + 1 (right sample shifted left)

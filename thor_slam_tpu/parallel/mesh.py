@@ -15,7 +15,7 @@ normal equations. The multi-chip design follows directly:
   local correspondences with one ``psum`` of the inlier counts, and the
   globally best hypothesis seeds a Huber-IRLS polish where each device
   reduces its correspondences to (J^T W J, J^T W r) — 6x6 + 6 floats —
-  and one ``psum`` per iteration rides the ICI. Every update is computed
+  and one ``psum`` per iteration crosses the interconnect. Every update is computed
   identically on every device, keeping poses replicated by construction.
 * keyframe decisions use psum'd global inlier counts, so all devices
   refresh their local landmark banks on the same frames.

@@ -19,8 +19,8 @@ when fed ``RGBDProcessor.process(..., fetch=False)`` device frames (depth
 and color are consumed where the depth pipeline produced them). The grid
 never leaves the device between ticks, and its channel buffers are
 DONATED through every integrate/decay/recenter, so the ~100 MB state is
-reused in place instead of churning the allocator (the tracker's proven
-streaming pattern; without it, hosted-TPU transfer throughput collapses).
+reused in place instead of churning the allocator (the tracker's
+streaming pattern).
 Consequence: a ``TsdfGrid`` reference obtained from :attr:`DenseMapper.
 grid` is invalidated by the NEXT integrate/decay/recenter — read it (or
 copy) before integrating again.

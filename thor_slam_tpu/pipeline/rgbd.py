@@ -87,8 +87,8 @@ def make_depth_to_color_aligner(
     """Jitted ``depth_rect -> depth_color``: depth along the COLOR rays.
 
     The role the reference delegates to the camera ASIC's
-    ``setDepthAlign(CAM_A)`` (reference luxonis.py:538-549). TPU shaping:
-    a forward splat (scatter) is scalar-bound on TPU, so alignment runs as
+    ``setDepthAlign(CAM_A)`` (reference luxonis.py:538-549). Design: a
+    forward splat would be a scatter with collisions, so alignment runs as
     an INVERSE warp with a short fixed-point iteration — for every color
     output pixel, guess its depth, project the implied 3D point into the
     rectified-left depth map, read the depth there, lift it back into the

@@ -4,7 +4,7 @@ The reference's only concrete engine republishes synchronized frames +
 calibration + IMU as ROS topics for NVIDIA's closed-source cuVSLAM and
 reads the pose back (reference thor_slam/slam/adapters/isaac_ros.py:
 59-458). This adapter reproduces that INPUT-side bridge so a robot
-operator can A/B the in-process TPU engine against cuVSLAM (or any DDS
+operator can A/B the in-process engine against cuVSLAM (or any DDS
 solver) on identical synchronized frames — the only way the ATE-parity
 north star gets a real-world number.
 

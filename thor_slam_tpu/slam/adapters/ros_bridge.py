@@ -1,7 +1,7 @@
-"""Optional ROS 2 edge: export TPU-SLAM results to the ROS ecosystem.
+"""Optional ROS 2 edge: export SLAM results to the ROS ecosystem.
 
 The reference's adapter republishes *inputs* to an external CUDA solver
-(reference isaac_ros.py). With SLAM computed in-process on TPU, the ROS
+(reference isaac_ros.py). With SLAM computed in-process on the accelerator, the ROS
 edge inverts: it publishes our *outputs* — odometry on
 ``/visual_slam/tracking/odometry`` (the reference's topic, so downstream
 consumers like nvblox/RViz/publish_odom_tf work unchanged), TF, and the
@@ -98,7 +98,7 @@ class RosBridge:  # pragma: no cover - ROS stack
         self._rgbd_pubs: dict[str, tuple] = {}
         # The reference's RViz layout displays cuVSLAM's landmark /
         # observation clouds (reference config/thor_visual_slam.rviz:78,
-        # 110); ours come from the TPU engine instead.
+        # 110); ours come from the in-process engine instead.
         self._landmarks_pub = self._node.create_publisher(
             PointCloud2, "/visual_slam/vis/landmarks_cloud", 2
         )

@@ -136,7 +136,7 @@ class SlamEngine(ABC):
     def initialize(self, calibration: RigCalibration, config: SlamConfig | None = None) -> None:
         """Prepare the engine with rig calibration; must precede process_frames().
 
-        TPU engines precompute rectification maps and warm up jit caches here.
+        Accelerator engines precompute rectification maps and warm up jit caches here.
 
         Raises:
             RuntimeError: If the engine cannot be brought up.

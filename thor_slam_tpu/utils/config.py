@@ -4,7 +4,7 @@ Field-compatible with the reference's config/slam_config.yaml (per-camera
 ip/stereo/resolution/sensor_type/enable_rgbd/rgb resolutions; global fps/
 display/urdf_path/imu_report_rate/queue sizes; nvblox_cameras list —
 reference scripts/run_slam.py:53-114 and scripts/run_pipeline.py:85-159),
-plus a ``backend`` section for TPU-engine options and a ``synthetic``
+plus a ``backend`` section for engine options and a ``synthetic``
 section so every app runs hardware-free.
 """
 
@@ -13,8 +13,6 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
-
-import yaml
 
 
 class ConfigError(ValueError):
@@ -63,7 +61,7 @@ class CameraEntry:
 
 @dataclass
 class BackendConfig:
-    """TPU engine options (our extension; absent keys keep defaults)."""
+    """Engine options (our extension; absent keys keep defaults)."""
 
     max_keypoints: int = 512
     enable_ba: bool = True
@@ -80,8 +78,8 @@ class BackendConfig:
     pipelined: bool = True
     #: In-flight ticks when pipelined (pose latency = depth ticks). The
     #: full feature set (BA + IMU + loop closure) runs at any depth —
-    #: deeper pipelines amortize host<->device round trips, which is the
-    #: throughput lever on remote/tunneled TPUs.
+    #: deeper pipelines amortize host<->device round trips, the throughput
+    #: lever on a high-latency host–device link.
     pipeline_depth: int = 1
     #: SPMD: track over an N-device jax mesh (1 = single chip).
     devices: int = 1
@@ -117,7 +115,7 @@ class MappingConfig:
     4 vox, max integration distance 10 m). Disabled by default — when
     off, run_pipeline only PUBLISHES the RGB-D feed, exactly like the
     reference (which needs an external CUDA nvblox process to consume
-    it); when on, the TPU-native mapper consumes it in-process.
+    it); when on, the in-process mapper consumes it on the same device.
     """
 
     enabled: bool = False
@@ -265,8 +263,12 @@ def load_config(path: str | Path) -> RunConfig:
     Raises:
         ConfigError: On malformed YAML or invalid field values, with the
             offending file and field in the message (no raw tracebacks for
-            operator typos).
+            operator typos), or when PyYAML is not installed.
     """
+    try:
+        import yaml
+    except ImportError as e:
+        raise ConfigError(f"{path}: reading a YAML config needs PyYAML (pip install pyyaml)") from e
     try:
         with open(path) as f:
             data = yaml.safe_load(f) or {}

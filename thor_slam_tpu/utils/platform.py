@@ -5,43 +5,34 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
+#: Fixed in-checkout cache location (listed in .gitignore). The path is part
+#: of JAX's cache key, so it must not move between runs.
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
-def enable_compilation_cache(cache_dir: str | None = None) -> None:
+
+def enable_compilation_cache() -> None:
     """Turn on JAX's persistent compilation cache.
 
-    Tracker-step compiles take minutes on remote-attached TPUs; with the
-    cache, every identically-shaped run after the first starts instantly.
-    Safe to call multiple times; call before the first jit compilation.
+    With the cache, every identically-shaped run after the first skips the
+    tracker-step compile. Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX
+    already reads it and no other directory is set here. Safe to call
+    multiple times; call before the first jit compilation.
     """
     import jax
 
-    path = Path(cache_dir or os.environ.get("JAX_CACHE_DIR", Path.home() / ".cache" / "jax_compilation"))
-    path.mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(path))
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        DEFAULT_CACHE_DIR.mkdir(parents=True, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", str(DEFAULT_CACHE_DIR))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def force_cpu() -> None:
     """Pin JAX to the CPU backend (tests, CI, hardware-free hosts).
 
-    Must run before any JAX backend initialization. Note: hosted-TPU
-    plugins may force-register even when JAX_PLATFORMS=cpu is exported;
-    the explicit config update is the reliable override.
+    Must run before any JAX backend initialization; the explicit config
+    update also holds where an accelerator plugin registers itself.
     """
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-
-
-def pallas_backend() -> bool:
-    """True when the TPU Pallas kernels should run (Mosaic-capable backend).
-
-    ``THOR_SLAM_DISABLE_PALLAS=1`` forces the portable XLA fallbacks —
-    the escape hatch for debugging kernel/XLA discrepancies in place.
-    """
-    if os.environ.get("THOR_SLAM_DISABLE_PALLAS"):
-        return False
-    import jax
-
-    return jax.default_backend() not in ("cpu", "gpu")
